@@ -3,7 +3,7 @@
 //
 // The reference's runtime-around-the-solver is C++ (deal.II mesh handling,
 // VTK writers via deal.II DataOut, the networkx reduction shelled out from
-// C++); the TPU rebuild keeps the compute path in XLA but implements the
+// C++); this rebuild keeps the compute path in XLA but implements the
 // IO/runtime pieces natively:
 //   * gmsh .msh (v2 ascii) hex-mesh parser        (FE_problem_type.h:94-109)
 //   * binary-appended .vtu writer                 (FE_problem.h:2126-2254)

@@ -18,6 +18,7 @@ import time
 def cmd_run(args) -> int:
     import jax
 
+    t_setup = time.perf_counter()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
@@ -97,10 +98,11 @@ def cmd_run(args) -> int:
         # fixed-box equilibration (debug/smoke runs)
         hmm = build_md_hmm(cfg, staged=not args.quick_prep)
 
+    dev = jax.devices()[0]
+    print(f"Device: {dev.platform} {dev.device_kind} x{len(jax.devices())}")
     print(f"Problem: {cfg.problem.cls}  mesh {cfg.mesh.x_cells}x{cfg.mesh.y_cells}x"
           f"{cfg.mesh.z_cells}  qps {hmm.geom.n_qp_total}  dt {cfg.time.timestep_length}")
     state = hmm.init_state()
-    step = jax.jit(hmm.step)
 
     def fe_of(s):
         # the MD-coupled carry is (FEState, MicroStates); FEState itself is
@@ -152,6 +154,13 @@ def cmd_run(args) -> int:
         # mesh wireframe EPS at init (FEProblem::visualise_mesh)
         writer.write_mesh_eps()
 
+    jax.block_until_ready(state)
+    print(f"Set-up: {time.perf_counter() - t_setup:.3f}s "
+          "(config, material prep, initial state)")
+    t0 = time.perf_counter()
+    step = jax.jit(hmm.step).lower(state).compile()
+    print(f"Compile: {time.perf_counter() - t0:.3f}s")
+
     if args.profile:
         jax.profiler.start_trace(args.profile)
 
@@ -159,21 +168,20 @@ def cmd_run(args) -> int:
     # in-memory snapshot and retry.  The reference's only recovery story is
     # checkpoint/restart from disk after exit(1) (stmd_sync.h:585-606
     # documents an abandoned communicator-isolation attempt); here a
-    # snapshot of the full two-scale carry costs one HBM copy, so the run
-    # self-heals through transient accelerator faults.
+    # snapshot of the full two-scale carry costs one device-memory copy,
+    # so the run self-heals through transient accelerator faults.
     last_good = state
     last_good_k = 0
     retries_left = args.max_retries
 
     t_total = time.perf_counter()
+    step_walls = []
     k = 0
     while k < n_steps:
         t0 = time.perf_counter()
         try:
             state, out = step(state)
             jax.block_until_ready(state)
-            # a device-side fault surfaces on the transfer; force it now
-            float(fe_of(state).time)
         except Exception as e:  # noqa: BLE001 — filtered just below
             # only runtime/device faults are transient; deterministic
             # errors (config/shape/dtype bugs) raise immediately instead
@@ -195,6 +203,7 @@ def cmd_run(args) -> int:
         last_good, last_good_k = state, k + 1
         k += 1
         wall = time.perf_counter() - t0
+        step_walls.append(wall)
         fe = fe_of(state)
         ts = int(fe.timestep)
         print(
@@ -263,6 +272,12 @@ def cmd_run(args) -> int:
     u = np.asarray(fe_of(state).u).reshape(-1, 3)
     print(f"Max displacement: {np.abs(u).max():.6g} m")
     print(f"Total wall time: {time.perf_counter() - t_total:.2f}s for {n_steps} steps")
+    if step_walls:
+        print(f"Seconds per macro-step: {sum(step_walls) / len(step_walls):.6f} "
+              f"(mean of {len(step_walls)})")
+    stats = dev.memory_stats()
+    if stats and "peak_bytes_in_use" in stats:
+        print(f"Peak device memory: {stats['peak_bytes_in_use']} bytes")
     return 0
 
 
@@ -524,6 +539,9 @@ def main(argv=None) -> int:
     pa.set_defaults(fn=cmd_analyse_md)
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -4,10 +4,10 @@ replacement for the reference's O(N^2) MPI ring exchange.
 The reference ring-passes every rank's splines around all ranks and
 L2-compares received histories against local ones
 (compare_histories_with_all_ranks, strain2spline.h:546-614) — a
-ring-attention-shaped communication pattern.  On TPU the whole comparison
-is one matmul-shaped kernel: ||a-b||^2 = |a|^2 + |b|^2 - 2 a.b with the
-cross term on the MXU.  For sharded histories the same computation runs
-under shard_map with an all_gather (parallel/mesh_utils.py).
+ring-attention-shaped communication pattern.  On one device the whole
+comparison is a blockwise distance computation; for sharded histories the
+same computation runs under shard_map with an all_gather
+(parallel/mesh_utils.py).
 """
 from __future__ import annotations
 
@@ -30,12 +30,6 @@ def pairwise_l2(splines: jax.Array, block: int = 256) -> jax.Array:
     if n <= block:
         diff = splines[:, None, :] - splines[None, :, :]
         return jnp.sqrt(jnp.sum(diff * diff, axis=-1))
-
-    if jax.default_backend() == "tpu":
-        # fused Pallas tile kernel: ~2x the blockwise XLA path at 4.6k qps
-        from ..ops.pairwise_pallas import pairwise_l2_pallas
-
-        return pairwise_l2_pallas(splines)
 
     pad = (-n) % block
     padded = jnp.pad(splines, ((0, pad), (0, 0)))

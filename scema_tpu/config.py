@@ -124,7 +124,7 @@ class MDParamsConfig:
 class ResourcesConfig:
     """reference: 'computational resources' (stmd_sync.h:189-278).
 
-    In the TPU rebuild the MPI core partitioner disappears; these knobs
+    In this rebuild the MPI core partitioner disappears; these knobs
     parameterize the padded batched-MD dispatcher instead
     (parallel/dispatch.py).
     """
@@ -172,7 +172,7 @@ class HMMConfig:
     resources: ResourcesConfig = field(default_factory=ResourcesConfig)
     output: OutputConfig = field(default_factory=OutputConfig)
     dirs: DirectoryConfig = field(default_factory=DirectoryConfig)
-    # TPU-native extras (no reference equivalent):
+    # extras with no reference equivalent:
     dtype: str = "float64"  # FE state dtype; float64 for CPU parity tests
     md_dtype: str = "float32"  # MD engine dtype
     seed: int = 0  # replaces mt19937(time(0)) at FE.h:192 with a fixed seed

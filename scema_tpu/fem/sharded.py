@@ -4,7 +4,7 @@ The base posture (docs/parallelization.md "Scaling ceiling") replicates
 FE nodal arrays on every device — the same stance as the reference's
 ``parallel::shared::Triangulation`` (full mesh copy per rank,
 READMEs/Parallelization.md lists distributed triangulations as future
-work).  This module removes that ceiling the TPU-idiomatic way: no
+work).  This module removes that ceiling the XLA-idiomatic way: no
 hand-rolled halo exchange, just `jax.lax.with_sharding_constraint`
 annotations on the state boundaries —
 

@@ -49,8 +49,8 @@ def inv_h(h) -> jax.Array:
     the virial's strain-derivative closure (engine.forces_energy_virial)
     deforms h by arbitrary 3x3 factors, and an upper-triangular-only
     inverse silently corrupts the minimum image there — which showed up as
-    an asymmetric dE/d(eps) and wrong shear virials (caught by the Pallas
-    force kernel's independent pair-sum virial).
+    an asymmetric dE/d(eps) and wrong shear virials (caught by an
+    independent pair-sum virial).
     """
     return jnp.linalg.inv(h)
 

@@ -311,9 +311,7 @@ def build_pe_chain_allatom(n_carbons: int = 10,
     alkane parameters (Jorgensen et al. 1996).
 
     Atom order is [C H H (H)] per heavy group — every hydrogen sits at
-    offset +1..+3 of its parent carbon, which the fused kernel's
-    roll-based SHAKE exploits (constraint partners at small static
-    offsets).  Types: 0 = CH3 carbon, 1 = CH2 carbon, 2 = H, mirroring
+    offset +1..+3 of its parent carbon.  Types: 0 = CH3 carbon, 1 = CH2 carbon, 2 = H, mirroring
     the reference's type numbering.
     """
     nC = n_carbons

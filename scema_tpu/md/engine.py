@@ -50,9 +50,8 @@ class MDSystem:
     rebuild_every: int = 10  # neighbor-list reuse (neigh_modify analog)
     tdamp: float = 100.0  # thermostat damping, time units (fix nvt ... 100.0)
     grid: object = None  # grid.GridSpec — use the gather-free cell grid
-    onehot: object = None  # neighbor_onehot.OneHotSpec — MXU one-hot gather
+    onehot: object = None  # neighbor_onehot.OneHotSpec — one-hot gather
     constraints: object = None  # constraints.Constraints — SHAKE/RATTLE
-    fused: object = None  # md_fused.FusedRunner — fused Pallas chunk path
     spatial: object = None  # spatial_md.SpatialRunner — P4 slab-sharded
     # force evaluations inside the run_strain/sample_stress loops
 
@@ -76,9 +75,9 @@ class MDSystem:
     def build_neighbors(self, pos, h):
         """Interaction structure for ff.energy: grid, one-hot, or list.
 
-        Force fields with a built-in static structure (the Pallas brick
-        kernels) need no per-run neighbor data — a placeholder is carried
-        through the loops instead.
+        Force fields that need no per-run neighbor data (the dense ReaxFF
+        field declares ``slot_ids``) get a placeholder carried through the
+        loops instead.
         """
         if getattr(self.ff, "slot_ids", None) is not None:
             return jnp.zeros((), dtype=jnp.int32)
@@ -122,8 +121,6 @@ def temperature(sys: MDSystem, vel) -> jax.Array:
 
 
 def forces(sys: MDSystem, pos, h, nbr) -> jax.Array:
-    if hasattr(sys.ff, "forces"):  # fused Pallas kernel path
-        return sys.ff.forces(pos, h, nbr)
     return -jax.grad(lambda p: sys.ff.energy(p, h, nbr))(pos)
 
 
@@ -132,11 +129,7 @@ def forces_energy_virial(sys: MDSystem, pos, h, nbr):
 
     W_ab = -dE/d eps_ab for the affine deformation pos->(1+eps)pos,
     h->(1+eps)h — one extra gradient alongside the force gradient.
-    Force fields exposing their own forces_energy_virial (the Pallas
-    brick kernels) are dispatched directly.
     """
-    if hasattr(sys.ff, "forces_energy_virial"):
-        return sys.ff.forces_energy_virial(pos, h, nbr)
 
     def e(p, eps):
         F = jnp.eye(3, dtype=p.dtype) + eps
@@ -296,20 +289,12 @@ def run_strain(
     (per-job, nts = ceil(|eps|/rate/dt/10)*10, stmd_problem.h:228-232) but
     is always a multiple of rebuild_every=10, so the loop runs in chunks of
     10 with one neighbor rebuild per chunk.
-
-    With sys.fused set, the whole chunk loop runs in the fused Pallas
-    kernel (ops/md_fused.py) — same semantics, VMEM-resident state.
     """
     if sys.spatial is not None:
         from ..parallel import spatial_md as SP
 
         return SP.run_strain_sharded(sys, sys.spatial, state, eps_eff,
                                      n_steps, T, dt)
-    if sys.fused is not None and (sys.constraints is None
-                                  or sys.fused.spec.shake_offsets):
-        from ..ops import md_fused as MFU
-
-        return MFU.run_strain_fused(sys.fused, state, eps_eff, n_steps, T, dt)
     h0 = state.h
     n_steps = jnp.maximum(n_steps, sys.rebuild_every)
     n_chunks = n_steps // sys.rebuild_every
@@ -572,11 +557,6 @@ def sample_stress(
 
         return SP.sample_stress_sharded(sys, sys.spatial, state, n_steps,
                                         T, dt)
-    if sys.fused is not None and (sys.constraints is None
-                                  or sys.fused.spec.shake_offsets):
-        from ..ops import md_fused as MFU
-
-        return MFU.sample_stress_fused(sys.fused, state, n_steps, T, dt)
     n_chunks = max(1, n_steps // sys.rebuild_every)
     warm = _qeq_warm_enabled(sys)
 

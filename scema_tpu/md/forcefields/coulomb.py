@@ -1,11 +1,10 @@
 """Coulomb electrostatics: cutoff, and Ewald (real + reciprocal + self).
 
 reference physics: ``kspace_style pppm 0.0001`` + ``pair_style
-lj/cut/coul/long 12.0 9.0`` (in.set.lammps).  The TPU-native long-range
+lj/cut/coul/long 12.0 9.0`` (in.set.lammps).  The on-device long-range
 path starts with classical Ewald — the reciprocal sum is a dense
-(n_k x N) phase matmul, which maps straight onto the MXU; a PPPM/FFT
-variant can replace it for very large N (TPUs do FFTs well) without
-changing this interface.
+(n_k x N) phase matmul; the PME variant (pme.py) replaces it for large N
+without changing this interface.
 
 Real units: qqr2e = 332.06371 converts q_i q_j / r (e^2/A) to kcal/mol
 (LAMMPS force.cpp real-units constant).
@@ -82,7 +81,7 @@ class Ewald:
         return 0.5 * jnp.sum(jnp.where(mask, e, 0.0))
 
     def reciprocal_energy(self, pos, h):
-        """Structure-factor sum over the static k-set (MXU-shaped)."""
+        """Structure-factor sum over the static k-set (matmul-shaped)."""
         two_pi = 2.0 * jnp.pi
         hinv = B.inv_h(h)
         k_cart = two_pi * (self.kvecs @ hinv)  # (n_k, 3)

@@ -1,12 +1,12 @@
 """Particle-mesh Ewald (smooth PME) — the reference's ``kspace_style pppm``
-on a TPU-native FFT mesh.
+on an on-device FFT mesh.
 
 reference physics: ``kspace_style pppm 0.0001`` (lammps_scripts_opls/
 in.set.lammps).  The dense Ewald reciprocal sum (coulomb.py:84-98) is
 O(N * n_k) — the right tool below ~2k atoms, the wrong one above.  PME
 replaces it with charge assignment onto a regular mesh via cardinal
 B-splines (Essmann et al., J. Chem. Phys. 103, 8577 (1995)), one 3-D FFT
-(XLA lowers jnp.fft to the TPU's native FFT), a diagonal influence-
+(XLA lowers jnp.fft to the backend's FFT library), a diagonal influence-
 function multiply, and an inverse interpolation that autodiff derives for
 free (the scatter-add's adjoint is exactly the force gather).
 
@@ -97,25 +97,16 @@ class PME:
     order: int = SPLINE_ORDER
     qqr2e: float = QQR2E_REAL
     _ewald_ref: object = None  # real-space/self/exclusion provider
-    # 3-D DFT as three MXU tensor contractions with precomputed complex
-    # DFT matrices instead of jnp.fft.fftn.  The theory said the matmul
-    # form should win on TPU (no FFT hardware; 3 x (K^3, K) complex
-    # contractions); the on-silicon A/B said otherwise: in the
-    # production charged bench composition (32 x 1792 atoms, mesh 36^3,
-    # scripts/probe_kspace_inloop.py) the fftn variant ran the full
-    # 10-re-entry trajectory 13.3 ms FASTER (253.7 vs 267.0 ms) —
-    # ~1.5 ms/eval — so XLA's fftn decomposition beats the small-K
-    # complex einsum chain in context.  None = auto (fftn everywhere);
-    # True opts back into the matmul form (machine-precision parity,
+    # 3-D DFT as three tensor contractions with precomputed complex DFT
+    # matrices instead of jnp.fft.fftn.  None = auto (fftn everywhere);
+    # True opts into the matmul form (machine-precision parity,
     # tests/test_pme.py).
     dft_matmul: bool | None = None
     # rho is real, so the K3 axis of its spectrum is conjugate-
     # symmetric: rfftn computes only K3//2+1 columns and the energy sum
     # doubles the interior ones — the same value (to roundoff) at ~half
-    # the DFT work.  On-silicon in-context A/B (probe_kspace_inloop,
-    # 32 x 1792-atom charged bench composition): 247.7 vs 252.0 ms/run
-    # = -0.48 ms per kspace eval, so None = ON (production default);
-    # False opts out; ignored when dft_matmul is True.
+    # the DFT work.  None = ON (production default); False opts out;
+    # ignored when dft_matmul is True.
     half_spectrum: bool | None = None
 
     @staticmethod
@@ -165,9 +156,8 @@ class PME:
 
         Scatter-free separable formulation: per-axis spread matrices
         W_a (N, K_a) are built by masked compares (5 dense select+mul
-        passes, no scatter — TPU scatters cost ~10x the arithmetic), and
-        the 3-way outer-product accumulation becomes ONE MXU matmul
-        (K1, N) @ (N, K2*K3).  Autodiff gives the force interpolation as
+        passes, no scatter), and the 3-way outer-product accumulation
+        becomes ONE matmul (K1, N) @ (N, K2*K3).  Autodiff gives the force interpolation as
         the transposed matmuls for free.
         """
         K = self.mesh
@@ -194,17 +184,17 @@ class PME:
         Wz = axis_matrix(2)
         Byz = (Wy[:, :, None] * Wz[:, None, :]).reshape(
             pos.shape[0], K[1] * K[2])
-        rho = Wx.T @ Byz  # (K1, K2*K3) — MXU
+        rho = Wx.T @ Byz  # (K1, K2*K3)
         return rho.reshape(K)
 
     def _fft3(self, rho):
         use_matmul = self.dft_matmul
         if use_matmul is None:
-            use_matmul = False  # fftn measured faster in-loop on v5e
+            use_matmul = False
         if not use_matmul:
             return jnp.fft.fftn(rho)
-        # three complex tensor contractions (XLA lowers each to 4 real
-        # MXU matmuls); matrices are tiny (K, K) constants
+        # three complex tensor contractions; matrices are tiny (K, K)
+        # constants
         cdtype = (jnp.complex128 if rho.dtype == jnp.float64
                   else jnp.complex64)
 

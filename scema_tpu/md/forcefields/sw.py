@@ -12,7 +12,7 @@ Functional form (Stillinger & Weber, PRB 31, 5262 (1985)):
 both cut at r = a*sig.  The two-body sum runs over the full neighbor list
 (halved); the three-body sum enumerates ordered pairs (j < k) within each
 atom's own list — an (N, K, K) dense masked computation, which is the
-TPU-shaped replacement for LAMMPS's triple loop.
+vectorized replacement for LAMMPS's triple loop.
 
 NOTE on units: LAMMPS interprets .sw file energies in the *active* unit
 system; the shipped example runs a metal-units file under ``units real``
@@ -47,9 +47,9 @@ class SW:
         return self.a * self.sigma
 
     def energy(self, pos: jax.Array, h: jax.Array, nbr: NB.NeighborList) -> jax.Array:
-        """Atom-minor layout: all hot arrays end in the atom axis N so the
-        TPU's 128-lane VPU vectorizes across atoms (pallas_guide tiling
-        rules — a trailing dim of 3 or K wastes 125/128 lanes)."""
+        """Atom-minor layout: all hot arrays end in the atom axis N, so
+        elementwise work vectorizes across atoms rather than over a
+        trailing dim of 3 or K."""
         N, K = nbr.idx.shape
         posT = pos.T  # (3, N)
         # gathered neighbor coords: (3, K, N)

@@ -1,16 +1,16 @@
-"""Cell-grid interaction structure: gather-free pair computation on TPU.
+"""Cell-grid interaction structure: gather-free pair computation.
 
 The neighbor-list path (neighbor.py) costs one (N, K)-row gather per force
-evaluation — measured at ~10 ns/row on TPU, it dominates the MD step.
-This module replaces it for the hot engine path with a dense cell grid:
+evaluation.  This module replaces the gather with a dense cell grid (its
+cost on the H100 is unmeasured):
 
 * atoms are binned into C = c1*c2*c3 cells (edge >= cutoff+skin) with a
   fixed per-cell capacity, stored as a slot grid ``(cap, C)`` with C padded
-  to a multiple of 128 (the TPU lane width — pallas_guide tiling rules);
+  to a multiple of 128;
 * the 27 neighbor-cell relations are *static permutations* of the C axis,
-  applied as one-hot matmuls on the MXU (regular, no gathers);
-* pair terms are computed on ``(cap_i, cap_j, C)`` blocks — minor dim C is
-  lane-aligned, fully vectorized;
+  applied as one-hot matmuls (regular, no gathers);
+* pair terms are computed on ``(cap_i, cap_j, C)`` blocks — minor dim C,
+  fully vectorized;
 * the SW three-body term uses the exact second-moment reduction (see
   forcefields/sw.py) so everything stays O(pairs).
 

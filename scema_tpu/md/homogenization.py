@@ -67,70 +67,22 @@ def strain_and_homogenize(
     state: E.MDState,
     dlength: jax.Array,
     params: MDParams,
-    active=None,
 ) -> tuple[E.MDState, jax.Array]:
     """One full MD job: strain the box, then sample the virial stress.
 
     Returns (persistent new microstate, stress in Pa, Voigt-6 framework
     order).  The returned state is the reference's ``last.<qpid>.dump``
-    persistent restart — kept in HBM instead of on disk.
-
-    ``active`` (scalar bool, vmappable): padding slots of a fixed-capacity
-    job list pass False — on the all-pairs fused path their step counts
-    drop to zero so the kernel skips them outright (per-step cost then
-    scales with jobs *executed*, not list capacity).  Results of inactive
-    jobs are discarded by the caller's scatter mask either way.
+    persistent restart — kept in device memory instead of on disk.
     """
     eps_eff = effective_strain(state.h, dlength)
     nts = nts_for_strain(eps_eff, params)
-    fused_dyn = sys.fused is not None and sys.fused.spec.allpairs
-    dt = params.dt
-    if active is not None and fused_dyn:
-        # inactive jobs run ONE step with dt = 0 and eps = 0 — an exact
-        # no-op on the state at ~1% of an active job's cost.  (A zero-trip
-        # count would be cheaper still, but a dynamic fori_loop with zero
-        # trips hangs the Mosaic kernel on real v5e hardware — measured;
-        # interpret mode is fine.)
-        nts = jnp.where(active, nts, 1)
-        n_sample = jnp.where(active, params.nsteps_sample, 1)
-        dt = jnp.where(active, dt, 0.0)
-        eps_eff = jnp.where(active, eps_eff, 0.0)
-    else:
-        n_sample = params.nsteps_sample
-    state = E.run_strain(sys, state, eps_eff, nts, params.temperature, dt)
+    state = E.run_strain(sys, state, eps_eff, nts, params.temperature,
+                         params.dt)
     state, press = E.sample_stress(
-        sys, state, n_sample, params.temperature, dt
+        sys, state, params.nsteps_sample, params.temperature, params.dt
     )
     stress_pa = -press * ATM_TO_PA
     return state, stress_pa
-
-
-def strain_and_homogenize_multi(sys, state_J, dlength_J, params: MDParams,
-                                active_J=None):
-    """J jobs packed into ONE fused kernel program (ops/md_fused.py's
-    FusedSpec.jobs mechanism, measured slower than J=1 in production — see
-    md_coupling pack_jobs — but bit-exact and available): the exact
-    per-job semantics of ``strain_and_homogenize``, leading axis J on
-    every argument/return.  Requires the all-pairs fused path without
-    kspace (the coupling layer gates on that)."""
-    eps_eff = jax.vmap(effective_strain)(state_J.h, dlength_J)
-    nts = jax.vmap(lambda e: nts_for_strain(e, params))(eps_eff)
-    dt = jnp.broadcast_to(jnp.asarray(params.dt, state_J.pos.dtype),
-                          nts.shape)
-    n_sample = jnp.full(nts.shape, params.nsteps_sample, jnp.int32)
-    if active_J is not None:
-        nts = jnp.where(active_J, nts, 1)
-        n_sample = jnp.where(active_J, n_sample, 1)
-        dt = jnp.where(active_J, dt, 0.0)
-        eps_eff = jnp.where(active_J[:, None], eps_eff, 0.0)
-    from ..ops import md_fused as MFU
-
-    r = sys.fused
-    state_J = MFU.run_strain_fused_multi(r, state_J, eps_eff, nts,
-                                         params.temperature, dt)
-    state_J, press = MFU.sample_stress_fused_multi(
-        r, state_J, n_sample, params.temperature, dt)
-    return state_J, -press * ATM_TO_PA
 
 
 # LAMMPS ELASTIC Voigt dir (0-based) -> framework Voigt index

@@ -1,7 +1,7 @@
 """Crystal builders for initial microstates and tests.
 
 The reference ships pre-equilibrated LAMMPS binary restarts
-(nanoscale_input/init.<mat>_<n>.bin) which are opaque; the TPU rebuild
+(nanoscale_input/init.<mat>_<n>.bin) which are opaque; this rebuild
 generates initial configurations directly (diamond Si for the sw example,
 fcc for LJ tests) and equilibrates them with md/init_material.py.
 """

@@ -1,15 +1,15 @@
-"""TPU-native neighbor lists: dense O(N^2) for small boxes, cell-binned
+"""Neighbor lists: dense O(N^2) for small boxes, cell-binned
 candidates for large ones — both with static shapes.
 
 Replaces LAMMPS's ``neighbor 2.0 bin`` / ``neigh_modify every 1 delay 5``
-machinery (lammps_scripts in.set.lammps).  Design (pallas_guide: static
-shapes, masking over dynamic control flow):
+machinery (lammps_scripts in.set.lammps).  Design (static shapes, masking
+over dynamic control flow):
 
 * A *full* neighbor list (each pair appears in both rows) of fixed width K:
   ``idx (N, K) int32`` + ``mask (N, K) bool``.  Forces then need no scatter
-  — each atom sums over its own row (Newton-off, compute-rich, TPU-friendly).
+  — each atom sums over its own row (Newton-off, compute-rich).
 * Small N (< n2_threshold): one masked N^2 distance matrix, top-K by
-  distance via sort.  This is a dense, MXU/VPU-shaped computation.
+  distance via top_k.  This is a dense, regular computation.
 * Large N: bin atoms into cells of edge >= cutoff via a sort by cell id,
   gather the 27 neighboring cells' occupants (fixed capacity per cell) as
   candidates, then top-K compact.  All static shapes; occupancy overflow is
@@ -129,9 +129,8 @@ def _topk_compact(dr2: jax.Array, cand_idx: jax.Array, valid: jax.Array, k: int,
                   r2_cut: float) -> NeighborList:
     """Keep the k nearest valid candidates per row.
 
-    Uses lax.top_k on negated distances — O(n_cand * k) per row, far
-    cheaper than a full argsort on TPU (bitonic sort passes dominate
-    otherwise).
+    Uses lax.top_k on negated distances — O(n_cand * k) per row instead
+    of a full argsort.
     """
     big = jnp.asarray(1e30, dtype=dr2.dtype)
     keyed = jnp.where(valid & (dr2 < r2_cut), dr2, big)
@@ -155,97 +154,6 @@ def build_dense(spec: NeighborSpec, pos: jax.Array, h: jax.Array) -> NeighborLis
     return _topk_compact(dr2, cand, valid, min(spec.k_max, n - 1), spec.r_list**2)
 
 
-# --- packed dense rebuild (the fused-kernel fast path) --------------------
-#
-# One int32 key per candidate pair carries everything the kernel channels
-# need, so a single lax.top_k replaces the whole post-selection gather
-# cascade (take_along_axis of idx + (N,K,3) image gather + type/weight
-# table gathers — measured at ~10x the top_k cost on v5e):
-#
-#   bit 30    : in-range flag (top_k puts every in-range candidate first)
-#   bits 26-29: closeness priority (15 = touching, 0 = at r_list) — on
-#               list OVERFLOW the k largest keys are kept, so the pairs
-#               dropped are the farthest (weakest-force) ones, matching
-#               the distance-sorted generic compaction's behavior
-#   bits 10-25: candidate index (N <= 2^16; the dense regime gate is far
-#               below that)
-#   bits 6-9  : pair class (index into a <=16-entry (w4e, sig2[, qq]) LUT)
-#   bits 0-5  : periodic image +1 per axis, 2 bits each (min-image shifts
-#               are always in {-1,0,1})
-
-_PK_FLAG = 1 << 30
-_PK_PRIO_SHIFT = 26
-_PK_IDX_SHIFT = 10
-_PK_IDX_MASK = (1 << 16) - 1
-_PK_CLS_SHIFT = 6
-_PK_CLS_MASK = 0xF
-_PK_IMG_MASK = 0x3
-
-
-class PackedNeighbors(NamedTuple):
-    idx: jax.Array  # (N, K) int32 (self-padded when invalid)
-    mask: jax.Array  # (N, K) bool
-    cls: jax.Array  # (N, K) int32 pair-class in [0, 16)
-    # periodic image integers as three (N, K) planes — NOT one (N, K, 3)
-    # tensor: XLA TPU tiles a trailing dim of 3 to 128 (T(8,128)), which
-    # inflated the batched rebuild 42x (20.5 GB HBM at 8 x 4480 x 1120,
-    # round-5 ladder); the planes tile losslessly
-    img: tuple  # (imx, imy, imz), each (N, K) float
-
-
-def build_dense_packed(
-    spec: NeighborSpec, pos: jax.Array, h: jax.Array, pair_cls: jax.Array
-) -> PackedNeighbors:
-    """Dense O(N^2) rebuild with payload-packed top_k (no post-gathers).
-
-    ``pair_cls``: (N, N) int32 per-pair class matrix, constant across the
-    run (built once from types + special-bond weights at system setup).
-    """
-    n = pos.shape[0]
-    k = min(spec.k_max, n - 1)
-    d = pos[None, :, :] - pos[:, None, :]
-    s = jnp.einsum("ab,ijb->ija", B.inv_h(h), d)
-    img = -jnp.round(s)
-    dmin = jnp.einsum("ab,ijb->ija", h, s + img)
-    dr2 = jnp.sum(dmin * dmin, axis=-1)
-
-    valid = ~jnp.eye(n, dtype=bool)
-    in_range = valid & (dr2 < spec.r_list**2)
-    # NOTE: 2-bit payload images assume shifts in {-1,0,1} — true for
-    # wrapped or slowly-diffusing coordinates.  The engine keeps positions
-    # continuous (bonded chains need it), so after >1 box length of net
-    # drift a pair's true shift exceeds the payload range; typical HMM
-    # runs (<1 ns) drift far less.  The all-pairs kernel path computes
-    # images in-kernel with full-range round() and has no such limit.
-    imi = jnp.clip(img.astype(jnp.int32) + 1, 0, 2)
-    img_bits = (imi[..., 0] << 4) | (imi[..., 1] << 2) | imi[..., 2]
-    cand = jnp.arange(n, dtype=jnp.int32)[None, :]
-    prio = jnp.clip(
-        15 - (15.0 * dr2 / spec.r_list**2).astype(jnp.int32), 0, 15
-    )
-    key = (
-        jnp.where(in_range, _PK_FLAG, 0)
-        | (prio << _PK_PRIO_SHIFT)
-        | (cand << _PK_IDX_SHIFT)
-        | (pair_cls << _PK_CLS_SHIFT)
-        | img_bits
-    )
-    vals, _ = jax.lax.top_k(key, k)
-
-    mask = vals >= _PK_FLAG
-    idx = (vals >> _PK_IDX_SHIFT) & _PK_IDX_MASK
-    cls = (vals >> _PK_CLS_SHIFT) & _PK_CLS_MASK
-    imx = ((vals >> 4) & _PK_IMG_MASK) - 1
-    imy = ((vals >> 2) & _PK_IMG_MASK) - 1
-    imz = (vals & _PK_IMG_MASK) - 1
-    self_idx = jnp.arange(n, dtype=jnp.int32)[:, None]
-    idx = jnp.where(mask, idx, self_idx).astype(jnp.int32)
-    planes = tuple(jnp.where(mask, c.astype(pos.dtype), 0.0)
-                   for c in (imx, imy, imz))
-    return PackedNeighbors(idx=idx, mask=mask, cls=jnp.where(mask, cls, 0),
-                           img=planes)
-
-
 _CELL_OFFSETS = np.array(
     [[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)],
     dtype=np.int32,
@@ -262,7 +170,7 @@ def build_cells_structured(
     relations is a static permutation of the C axis, and distances are
     computed on dense (cap_i, cap_j, C) blocks — regular memory movement
     only.  The per-atom top-K compaction then runs on a (cap*C, 27*cap)
-    table.  ~10x faster to rebuild than the gather-based path on TPU.
+    table.
     """
     n = pos.shape[0]
     ncx, ncy, ncz = spec.cells

@@ -5,7 +5,7 @@ communicator (stmd_problem.h:156, 284 — LAMMPS's own domain decomposition
 over MPI).  Here the cell grid's x-plane axis is sharded over the mesh's
 "md" axis: each device owns a contiguous slab of cell planes, the
 27-stencil's x±1 neighbors at slab boundaries arrive by a ring
-``ppermute`` halo exchange (ICI neighbor traffic only), and the total
+``ppermute`` halo exchange (neighbour traffic only), and the total
 energy is a ``psum``.  Forces come from ``jax.grad`` straight through the
 ``shard_map`` — the ppermute transposes to its inverse, so the halo
 exchange differentiates for free.
@@ -236,7 +236,7 @@ def sw_virial_sharded(sw, sg: ShardedGridSpec, mesh, pos, h, axis="md",
 
 @dataclass(frozen=True)
 class SpatialRunner:
-    """MDSystem plug-in (like md_fused.FusedRunner): when set, the engine
+    """MDSystem plug-in: when set, the engine
     run_strain/sample_stress loops run with sharded force evaluations.
 
     The reference runs each big MD job spatially decomposed over its
@@ -245,7 +245,7 @@ class SpatialRunner:
     integration is negligible) while the O(N * 27 * cap^2) stencil work
     is decomposed into x-slabs with one ppermute halo plane per ring
     neighbor per force call — the psum of force shards is the only
-    collective, riding ICI.
+    collective over the device interconnect.
     """
 
     sg: ShardedGridSpec

@@ -3,6 +3,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import networkx as nx
+import pytest
 from scipy.interpolate import CubicSpline
 
 from scema_tpu.clustering.spline import splinify_histories
@@ -43,6 +44,19 @@ def test_pairwise_l2():
     d = np.asarray(pairwise_l2(jnp.asarray(s)))
     expect = np.sqrt(((s[:, None, :] - s[None, :, :]) ** 2).sum(-1))
     assert np.allclose(d, expect, atol=1e-10)
+
+
+@pytest.mark.parametrize("n,block", [(300, 256), (513, 256), (70, 16)])
+def test_pairwise_l2_blockwise_matches_direct(n, block):
+    """Past one block the distances come from the padded blockwise map;
+    they equal direct differencing, padding rows dropped."""
+    rng = np.random.default_rng(n)
+    s = rng.standard_normal((n, 10))
+    d = np.asarray(pairwise_l2(jnp.asarray(s), block=block))
+    expect = np.sqrt(((s[:, None, :] - s[None, :, :]) ** 2).sum(-1))
+    assert d.shape == (n, n)
+    assert np.allclose(d, expect, atol=1e-10)
+    assert np.all(np.diag(d) == 0.0)
 
 
 def _nx_reduce(adj):

@@ -126,11 +126,14 @@ def test_replica_rotation_averaging_isotropic_invariance():
     assert np.allclose(got, expect, rtol=1e-8)
 
 
-def test_reference_config_loads():
-    """The reference's shipped inputs_dogbone_cuboid.json parses unchanged."""
+def test_dogbone_config_loads():
+    """The in-repo dogbone config (reference schema) parses unchanged."""
     import json
+    import os
 
-    with open("/root/reference/input_configurations/inputs_dogbone_cuboid.json") as f:
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "dogbone_cuboid.json")
+    with open(path) as f:
         d = json.load(f)
     cfg = config_from_dict(d)
     assert cfg.problem.cls == "dogbone"

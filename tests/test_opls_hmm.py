@@ -79,41 +79,3 @@ def test_staged_melt_density_plausible():
     data = M.measure(sys, st, params)
     # kg/m^3: liquid octane 650-720; allow model/short-prep latitude
     assert 450.0 < data.density < 950.0, f"density {data.density} kg/m3"
-
-
-def test_hmm_pack_jobs_2_matches_pack_jobs_1():
-    """The coupling-level 2-job packing wiring (MDBackend.pack_jobs)
-    reproduces the unpacked macro-step exactly (the kernel mechanism is
-    bit-exact; this locks the flatten/group/scatter plumbing)."""
-    import dataclasses
-
-    cfg = HMMConfig()
-    cfg = cfg.replace(
-        mesh=cfg.mesh.__class__(x_cells=1, y_cells=1, z_cells=1),
-        time=cfg.time.__class__(timestep_length=5.0e-7, start_timestep=1,
-                                end_timestep=2),
-        bridging=cfg.bridging.__class__(stress_method=0,
-                                        approx_md_with_hookes_law=False),
-        material=cfg.material.__class__(number_of_replicas=1,
-                                        materials=("g0",),
-                                        proportions=(1.0,)),
-        md=cfg.md.__class__(temperature=100.0, timestep_length=1.0,
-                            strain_rate=1.0e-3, nsteps_sample=10,
-                            force_field="opls"),
-        md_dtype="float64",
-    )
-    hmm1 = build_md_hmm(cfg, spec=SPEC.__class__(
-        **{**SPEC.__dict__, "use_fused": True}),
-        equil_steps=30, minimize_steps=80)
-    assert hmm1.backend.pack_jobs == 1
-    be2 = dataclasses.replace(hmm1.backends[0], pack_jobs=2)
-    hmm2 = dataclasses.replace(hmm1, backends=(be2,))
-
-    c1, o1 = jax.jit(hmm1.step)(hmm1.init_state())
-    c2, o2 = jax.jit(hmm2.step)(hmm2.init_state())
-    s1 = np.asarray(c1[0].qp.new_stress)
-    s2 = np.asarray(c2[0].qp.new_stress)
-    assert np.allclose(s2, s1, rtol=0.0, atol=1e-10)
-    m1, m2 = c1[1][0], c2[1][0]
-    assert np.allclose(np.asarray(m2.pos), np.asarray(m1.pos), atol=1e-12)
-    assert np.allclose(np.asarray(m2.vel), np.asarray(m1.vel), atol=1e-12)

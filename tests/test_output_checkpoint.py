@@ -256,6 +256,8 @@ def test_cli_fault_recovery(tmp_path, monkeypatch, capsys):
     and the run completes with the correct final state (the CLI's
     transient-fault retry; the reference can only exit(1) + restart)."""
     import json
+    import types
+
     import jax as _jax
     from scema_tpu import cli as CLI
 
@@ -277,15 +279,22 @@ def test_cli_fault_recovery(tmp_path, monkeypatch, capsys):
     real_jit = _jax.jit
     calls = {"n": 0}
 
-    def faulty_jit(fn, *a, **kw):
-        jitted = real_jit(fn, *a, **kw)
-
+    def faulty(run):
         def wrapper(*args, **kwargs):
             calls["n"] += 1
             if calls["n"] == 3:  # fail once mid-run
                 raise RuntimeError("injected device fault")
-            return jitted(*args, **kwargs)
+            return run(*args, **kwargs)
 
+        return wrapper
+
+    def faulty_jit(fn, *a, **kw):
+        # the CLI compiles ahead of time (jit(...).lower(...).compile()),
+        # so the fault rides on the compiled executable's calls
+        jitted = real_jit(fn, *a, **kw)
+        wrapper = faulty(jitted)
+        wrapper.lower = lambda *la, **lk: types.SimpleNamespace(
+            compile=lambda: faulty(jitted.lower(*la, **lk).compile()))
         return wrapper
 
     monkeypatch.setattr(CLI, "jax", _jax, raising=False)

@@ -1,4 +1,5 @@
-"""The BASELINE.md 1e-6 parity artifact: Hooke-mode inputs_dogbone_cuboid,
+"""The 1e-6 parity artifact: Hooke-mode dogbone cuboid (configs/
+dogbone_cuboid.json, the reference's inputs_dogbone_cuboid settings),
 10 macro-steps, full 576-qp stress field checked against an independently
 derived golden solution.
 
@@ -20,9 +21,9 @@ from scema_tpu.hmm.problem import build_hooke_hmm
 
 from twin_fe import run_dogbone_twin
 
-CONFIG = "/root/reference/input_configurations/inputs_dogbone_cuboid.json"
-GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
-                      "dogbone_hooke_10step.npz")
+HERE = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(os.path.dirname(HERE), "configs", "dogbone_cuboid.json")
+GOLDEN = os.path.join(HERE, "golden", "dogbone_hooke_10step.npz")
 N_STEPS = 10
 
 

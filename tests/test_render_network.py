@@ -3,6 +3,8 @@
 Reference: clustering/render_network.py (py2 networkx/matplotlib script:
 cat ID_* shards -> greedy max-degree reduction trace -> spring-layout
 plot)."""
+import os
+
 import numpy as np
 import pytest
 
@@ -68,7 +70,8 @@ def test_cli_dump_similarity_roundtrip(tmp_path):
     out = tmp_path / "sim.npz"
     r = subprocess.run(
         [sys.executable, "-m", "scema_tpu.cli", "run",
-         "/root/reference/input_configurations/inputs_dogbone_cuboid.json",
+         os.path.join(os.path.dirname(os.path.dirname(
+             os.path.abspath(__file__))), "configs", "dogbone_cuboid.json"),
          "--hooke", "--cpu", "--steps", "2",
          "--dump-similarity", str(out)],
         capture_output=True, text=True, timeout=600)

@@ -88,9 +88,9 @@ def test_sharded_integration_matches_single_device():
 
     common = dict(name="si", force_field="sw", n_cells=5,
                   rebuild_every=10)
-    sys_x, st_x = M.build_system(M.MaterialSpec(**common, use_fused=False))
+    sys_x, st_x = M.build_system(M.MaterialSpec(**common))
     sys_s, st_s = M.build_system(
-        M.MaterialSpec(**common, use_fused=False, spatial_shards=4))
+        M.MaterialSpec(**common, spatial_shards=4))
     assert sys_s.spatial is not None and sys_x.spatial is None
     assert sys_s.n_atoms == 1000
     assert sys_s.spatial.mesh.shape["md"] == 4
